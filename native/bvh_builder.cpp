@@ -1,7 +1,7 @@
-// Binned-SAH BVH builder for ptsharp_tpu.
+// Binned-SAH BVH builder for ptsharp.
 //
-// The TPU-side traversal consumes flattened preorder arrays with skip links
-// (see ptsharp_tpu/accel/traverse.py); this builder produces higher-quality
+// The device-side traversal consumes flattened preorder arrays with skip links
+// (see ptsharp/accel/traverse.py); this builder produces higher-quality
 // trees than the Python Morton-LBVH fallback (surface-area-heuristic splits,
 // ~20-30% fewer node visits per ray) and builds ~1M-triangle meshes in
 // tens of milliseconds. Replaces the reference's recursive pointer k-d tree

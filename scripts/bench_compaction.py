@@ -1,6 +1,6 @@
-"""Compaction gain measurement (VERDICT item 3 acceptance): cornell with
-russian_roulette=True, max_bounces=8, 1M-ray wavefront — trace vs
-trace_compacted wall-clock on the real chip."""
+"""Compaction gain measurement: cornell with russian_roulette=True,
+max_bounces=8, 1M-ray wavefront — trace vs trace_compacted wall-clock on
+the default device (run it on the GPU; ROADMAP Queue 3 item 8)."""
 
 import os
 import sys
@@ -11,8 +11,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import jax.numpy as jnp
 
-from ptsharp_tpu import examples
-from ptsharp_tpu.integrator import IntegratorConfig, trace, trace_compacted
+from ptsharp import examples
+from ptsharp.integrator import IntegratorConfig, trace, trace_compacted
 
 R = 1 << 20
 

@@ -2,8 +2,8 @@
 golden-scene acceptance pass mirroring the reference's Example.cs usage
 (SURVEY.md §4). Run: python scripts/render_catalog.py [outdir] [scale]
 
-Runs on CPU by default (fast compiles); set PTSHARP_CATALOG_TPU=1 to use
-the default backend instead.
+Runs on CPU by default (fast compiles); set PTSHARP_CATALOG_GPU=1 to render
+on the GPU instead.
 """
 
 import os
@@ -11,7 +11,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if not os.environ.get("PTSHARP_CATALOG_TPU"):
+if not os.environ.get("PTSHARP_CATALOG_GPU"):
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
@@ -23,9 +23,9 @@ import time
 
 import numpy as np
 
-from ptsharp_tpu import examples
-from ptsharp_tpu.film import save_png
-from ptsharp_tpu.renderer import Renderer, RenderConfig
+from ptsharp import examples
+from ptsharp.film import save_png
+from ptsharp.renderer import Renderer, RenderConfig
 
 
 def main(outdir="catalog_out", scale=0.25):

@@ -1,11 +1,12 @@
 """Scaling-efficiency harness: sharded render throughput on 1/2/4/8 virtual
-CPU devices (BASELINE.md scaling table; SURVEY.md §5 distributed-backend
-row). Run: python scripts/scaling_bench.py
+CPU devices (SURVEY.md §5 distributed-backend row). Run:
+python scripts/scaling_bench.py
 
 Virtual CPU devices measure the *sharding overhead* (collectives, partition
-bookkeeping) rather than real ICI bandwidth — on CPU all "devices" share
-the same silicon, so super-/sub-linear deviations are scheduling artifacts.
-The same code path scales a real pod via parallel.distributed.initialize.
+bookkeeping) rather than real interconnect bandwidth — on CPU all "devices"
+share the same silicon, so super-/sub-linear deviations are scheduling
+artifacts. These are CPU numbers, never GPU ones; `python chip_smoke.py
+--four-cards` runs the same sharded path on four cards.
 """
 
 import os
@@ -27,9 +28,9 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-from ptsharp_tpu import examples
-from ptsharp_tpu.parallel.distributed import global_mesh
-from ptsharp_tpu.parallel.shard import render_image_sharded
+from ptsharp import examples
+from ptsharp.parallel.distributed import global_mesh
+from ptsharp.parallel.shard import render_image_sharded
 
 
 def main():
@@ -65,7 +66,7 @@ def main():
         print(f"devices={n} (dp={dp},sp={sp})  {dt*1e3:8.1f} ms  "
               f"{rate:7.2f} Mprimary/s  efficiency {eff:5.1f}%", flush=True)
 
-    print("\nMarkdown rows for BASELINE.md:")
+    print("\nMarkdown rows (virtual CPU devices):")
     for n, dp, sp, dt, rate, eff in rows:
         print(f"| {n} | ({dp}, {sp}) | {rate:.2f} | {eff:.0f}% |")
 

@@ -1,6 +1,6 @@
-"""Any-hit occlusion path (round-4 NEE shadow fast path): the Pallas
-any-hit kernel vs brute-force triangle tests, occlusion_query vs
-closest-hit visibility, and estimator parity of anyhit_shadows on/off
+"""Any-hit occlusion path (the NEE shadow fast path): the any-hit kernel
+vs the bounded closest-hit kernel, occlusion_query vs closest-hit
+visibility, and estimator parity of anyhit_shadows on/off
 (Sampler.cs:261-296 visibility semantics)."""
 
 from dataclasses import replace
@@ -9,12 +9,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptsharp_tpu.integrator import IntegratorConfig, trace
-from ptsharp_tpu.intersect import closest_hit, light_hit_t, occlusion_query
-from ptsharp_tpu.materials import diffuse_material, light_material
-from ptsharp_tpu.pallas import wide_kernel as wk
-from ptsharp_tpu.scene import PT_SPHERE, SceneBuilder
-from ptsharp_tpu.geometry.mesh import cube_mesh, sphere_mesh
+from ptsharp.integrator import IntegratorConfig, trace
+from ptsharp.intersect import closest_hit, light_hit_t, occlusion_query
+from ptsharp.materials import diffuse_material, light_material
+from ptsharp.intersect import _xform_dir, _xform_point
+from ptsharp.pallas import traverse_gpu
+from ptsharp.scene import PT_SPHERE, SceneBuilder
+from ptsharp.geometry.mesh import cube_mesh, sphere_mesh
 
 
 def _mesh_scene(intersector="pallas"):
@@ -45,14 +46,14 @@ def test_anyhit_kernel_matches_closest_hit_boolean():
     t_cut = jnp.asarray(
         np.where(rng.random(512) < 0.1, -1.0,
                  rng.uniform(0.2, 6.0, 512)).astype(np.float32))
-    # flat tables: one range covers every instance
-    for b0, e0 in zip(sp.p_inst_base, sp.p_inst_end):
-        t_ref, _s, _u, _v = wk.pallas_traverse_wide(
-            sp.p_rows, sp.p_leaf, org, d, t_cut,
-            b0, e0, sp.max_leaf, sp.wide_k, tile=256)
-        occ = wk.pallas_occluded_wide8(
-            sp.p_rows, sp.p_leaf, org, d, t_cut,
-            b0, e0, sp.max_leaf, sp.wide_k)
+    for i in range(sp.inst_inv.shape[0]):
+        inv = sp.inst_inv[i]
+        o = _xform_point(inv[None], org)
+        dd = _xform_dir(inv[None], d)
+        args = (sp.w_rows, sp.leaf_rows, o, dd, t_cut, sp.w_inst_base[i],
+                sp.w_inst_end[i], sp.max_leaf, sp.wide_k)
+        t_ref, _s, _u, _v = traverse_gpu.closest_hit(*args)
+        occ = traverse_gpu.occluded(*args)
         np.testing.assert_array_equal(
             np.asarray(occ), np.asarray(t_ref) < 1e8)
 
@@ -110,75 +111,3 @@ def test_trace_anyhit_matches_closest_visibility():
     frac_diff = np.mean(np.any(np.abs(a - c) > 1e-5, axis=-1))
     assert frac_diff < 0.02, frac_diff
     assert abs(a.mean() - c.mean()) / max(c.mean(), 1e-9) < 0.02
-
-
-def test_fat_anyhit_matches_fat_closest_boolean():
-    """pallas_occluded_hbm8_fat == (fat closest-hit t < t_cut) on the same
-    fat table (interpret mode; the compiled path is gated by
-    tests/test_tpu_compiled.py on a real chip)."""
-    from ptsharp_tpu.pallas import hbm_kernel as hk
-
-    sp = _mesh_scene()
-    fat = jnp.asarray(hk.pack_fat(sp.p_rows, sp.p_leaf, sp.max_leaf))
-    org, d = _rays(512, seed=17)
-    rng = np.random.default_rng(8)
-    t_cut = jnp.asarray(
-        np.where(rng.random(512) < 0.1, -1.0,
-                 rng.uniform(0.2, 6.0, 512)).astype(np.float32))
-    b0, e0 = sp.p_inst_base[0], sp.p_inst_end[0]
-    t_ref, _s, _u, _v = hk.pallas_traverse_hbm8_fat(
-        fat, org, d, t_cut, b0, e0, sp.max_leaf, sp.wide_k)
-    occ = hk.pallas_occluded_hbm8_fat(
-        fat, org, d, t_cut, b0, e0, sp.max_leaf, sp.wide_k)
-    np.testing.assert_array_equal(np.asarray(occ), np.asarray(t_ref) < 1e8)
-
-
-def test_fat_anyhit_pipe_mt_gate_matches():
-    """The pipelined any-hit kernel with the MT gate (production HBM
-    occlusion path) must agree with the ungated fat any-hit kernel."""
-    from ptsharp_tpu.pallas import hbm_kernel as hk
-    from ptsharp_tpu.pallas import ordered_kernel as ok
-
-    sp = _mesh_scene()
-    fat = jnp.asarray(hk.pack_fat(sp.p_rows, sp.p_leaf, sp.max_leaf))
-    org, d = _rays(512, seed=21)
-    rng = np.random.default_rng(9)
-    t_cut = jnp.asarray(
-        np.where(rng.random(512) < 0.1, -1.0,
-                 rng.uniform(0.2, 6.0, 512)).astype(np.float32))
-    b0, e0 = sp.p_inst_base[0], sp.p_inst_end[0]
-    ref = hk.pallas_occluded_hbm8_fat(
-        fat, org, d, t_cut, b0, e0, sp.max_leaf, sp.wide_k)
-    for gate in (False, True):
-        occ = ok.pallas_occluded_fat_pipe(
-            fat, org, d, t_cut, b0, e0, sp.max_leaf, sp.wide_k,
-            mt_gate=gate)
-        np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref))
-
-
-def test_ordered_fat_mt_gate_and_dual_match():
-    """Round-5 closest-hit variants over a pack_fat table: the MT-gated
-    pipelined kernel (production) and the dual-packet kernel must return
-    identical (t, slot, u, v) to the preorder fat kernel."""
-    from ptsharp_tpu.pallas import hbm_kernel as hk
-    from ptsharp_tpu.pallas import ordered_kernel as ok
-
-    sp = _mesh_scene()
-    fat = jnp.asarray(hk.pack_fat(sp.p_rows, sp.p_leaf, sp.max_leaf))
-    org, d = _rays(3000, seed=23)   # non-multiple of 2048: dual padding
-    b0, e0 = sp.p_inst_base[0], sp.p_inst_end[0]
-    t0, s0, u0, v0 = hk.pallas_traverse_hbm8_fat(
-        fat, org, d, 1e9, b0, e0, sp.max_leaf, sp.wide_k)
-    t1, s1, u1, v1 = ok.pallas_traverse_ordered8_fat(
-        fat, org, d, 1e9, b0, e0, sp.max_leaf, sp.wide_k,
-        order_mode="near", pipelined=True, mt_gate=True)
-    t2, s2, u2, v2 = ok.pallas_traverse_ordered8_fat_dual(
-        fat, org, d, 1e9, b0, e0, sp.max_leaf, sp.wide_k, mt_gate=True)
-    for t, s, u, v in ((t1, s1, u1, v1), (t2, s2, u2, v2)):
-        np.testing.assert_allclose(np.asarray(t), np.asarray(t0),
-                                   atol=1e-4)
-        np.testing.assert_array_equal(np.asarray(s), np.asarray(s0))
-        np.testing.assert_allclose(np.asarray(u), np.asarray(u0),
-                                   atol=1e-4)
-        np.testing.assert_allclose(np.asarray(v), np.asarray(v0),
-                                   atol=1e-4)

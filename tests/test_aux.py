@@ -5,15 +5,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptsharp_tpu.camera import Camera
-from ptsharp_tpu.checkpoint import load_checkpoint, save_checkpoint
-from ptsharp_tpu.denoise import atrous_denoise
-from ptsharp_tpu.film import Film
-from ptsharp_tpu.integrator import IntegratorConfig
-from ptsharp_tpu.materials import diffuse_material, light_material
-from ptsharp_tpu.renderer import RenderConfig, Renderer
-from ptsharp_tpu.scene import SceneBuilder
-from ptsharp_tpu.textures import TextureAtlas
+from ptsharp.camera import Camera
+from ptsharp.checkpoint import load_checkpoint, save_checkpoint
+from ptsharp.denoise import atrous_denoise
+from ptsharp.film import Film
+from ptsharp.integrator import IntegratorConfig
+from ptsharp.materials import diffuse_material, light_material
+from ptsharp.renderer import RenderConfig, Renderer
+from ptsharp.scene import SceneBuilder
+from ptsharp.textures import TextureAtlas
 
 
 def test_film_welford_matches_numpy():
@@ -112,7 +112,7 @@ def test_textured_material_render():
     img[:] = [0.0, 0.8, 0.0]
     b = SceneBuilder()
     tid = b.add_texture(img)
-    from ptsharp_tpu.materials import Material
+    from ptsharp.materials import Material
 
     b.add_plane([0, 0, 0], [0, 1, 0], Material(color=(1.0, 0.0, 0.0), texture=tid))
     b.set_environment(color=[1, 1, 1])
@@ -127,7 +127,7 @@ def test_textured_material_render():
 
 
 def test_volume_render_smoke():
-    from ptsharp_tpu.examples import build
+    from ptsharp.examples import build
 
     scene, cam, rcfg, icfg = build("volume", width=16, height=16)
     r = Renderer(scene, cam, RenderConfig(width=16, height=16, spp=2), icfg)
@@ -138,7 +138,7 @@ def test_volume_render_smoke():
 
 
 def test_sdf_example_smoke():
-    from ptsharp_tpu.examples import build
+    from ptsharp.examples import build
 
     scene, cam, rcfg, icfg = build("sdf", width=16, height=12)
     r = Renderer(scene, cam, RenderConfig(width=16, height=12, spp=2), icfg)
@@ -152,11 +152,11 @@ def test_renderer_compaction_gating():
     wrapper would fall back to an UN-jitted trace)."""
     import jax
 
-    from ptsharp_tpu.camera import Camera
-    from ptsharp_tpu.integrator import IntegratorConfig
-    from ptsharp_tpu.materials import diffuse_material, light_material
-    from ptsharp_tpu.renderer import Renderer, RenderConfig
-    from ptsharp_tpu.scene import SceneBuilder
+    from ptsharp.camera import Camera
+    from ptsharp.integrator import IntegratorConfig
+    from ptsharp.materials import diffuse_material, light_material
+    from ptsharp.renderer import Renderer, RenderConfig
+    from ptsharp.scene import SceneBuilder
 
     b = SceneBuilder()
     b.add_sphere([0, 1, 0], 1.0, diffuse_material([0.6, 0.4, 0.3]))
@@ -193,7 +193,7 @@ def test_compaction_schedule_gating():
     can't engage — the renderer uses this to keep the jitted plain path
     (review finding: shallow-bounce or tiny-chunk shapes previously fell
     into an un-jitted trace())."""
-    from ptsharp_tpu.integrator import IntegratorConfig, compaction_schedule
+    from ptsharp.integrator import IntegratorConfig, compaction_schedule
 
     rr = IntegratorConfig(max_bounces=8, russian_roulette=True,
                           rr_start_depth=2)

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptsharp_tpu.accel import bvh as bvh_mod
-from ptsharp_tpu.accel import traverse
-from ptsharp_tpu.core import vec
-from ptsharp_tpu.geometry import primitives as prim
-from ptsharp_tpu.geometry.mesh import TriMesh, cube_mesh, sphere_mesh
+from ptsharp.accel import bvh as bvh_mod
+from ptsharp.accel import traverse
+from ptsharp.core import vec
+from ptsharp.geometry import primitives as prim
+from ptsharp.geometry.mesh import TriMesh, cube_mesh, sphere_mesh
 
 
 def _mesh_arrays(mesh: TriMesh, leaf_size=4):
@@ -105,10 +105,10 @@ def test_bvh_matches_brute_force_sphere_mesh():
 def test_scene_mesh_instancing():
     """Two instances of the same cube mesh via SceneBuilder: transformed
     instance must hit at the transformed location."""
-    from ptsharp_tpu.camera import Camera
-    from ptsharp_tpu.intersect import closest_hit
-    from ptsharp_tpu.materials import diffuse_material
-    from ptsharp_tpu.scene import PT_TRIANGLE, SceneBuilder
+    from ptsharp.camera import Camera
+    from ptsharp.intersect import closest_hit
+    from ptsharp.materials import diffuse_material
+    from ptsharp.scene import PT_TRIANGLE, SceneBuilder
 
     t = np.eye(4, dtype=np.float32)
     t[:3, 3] = [5.0, 0.0, 0.0]  # second cube at x=+5
@@ -130,9 +130,9 @@ def test_scene_mesh_instancing():
 def test_scene_mesh_normals_interpolated():
     """Smooth sphere mesh normals should be close to analytic sphere
     normals after barycentric interpolation."""
-    from ptsharp_tpu.intersect import closest_hit, hit_info
-    from ptsharp_tpu.materials import diffuse_material
-    from ptsharp_tpu.scene import SceneBuilder
+    from ptsharp.intersect import closest_hit, hit_info
+    from ptsharp.materials import diffuse_material
+    from ptsharp.scene import SceneBuilder
 
     mesh = sphere_mesh([0.0, 0.0, 0.0], 1.0, subdivisions=3)
     b = SceneBuilder()
@@ -155,7 +155,7 @@ def test_scene_mesh_normals_interpolated():
 def test_native_sah_builder():
     """Native C++ binned-SAH build: correct skip links, full coverage,
     traversal agrees with brute force."""
-    from ptsharp_tpu.accel import native
+    from ptsharp.accel import native
 
     if not native.available():
         import pytest
@@ -205,9 +205,9 @@ def test_multi_mesh_slot_layout_matches_brute():
     (scene.py slot_offset advance). A sphere mesh at subdiv 2 has 40
     leaves (40 % 16 != 0), so the offset cube mesh after it exposes any
     off-by-padding bug as wrong t values."""
-    from ptsharp_tpu.intersect import closest_hit
-    from ptsharp_tpu.materials import diffuse_material
-    from ptsharp_tpu.scene import PT_TRIANGLE, SceneBuilder
+    from ptsharp.intersect import closest_hit
+    from ptsharp.materials import diffuse_material
+    from ptsharp.scene import PT_TRIANGLE, SceneBuilder
 
     sph = sphere_mesh([0.0, 0.0, 0.0], 1.0, subdivisions=2)  # 320 tris
     cube = cube_mesh([-1, -1, -1], [1, 1, 1]).transform(
@@ -243,7 +243,7 @@ def test_wide_collapse_wellformed():
     """K-wide collapse invariants: preorder skip links strictly forward,
     every binary leaf present exactly once, child indices point at the
     children's own preorder slots."""
-    from ptsharp_tpu.accel import wide as wide_mod
+    from ptsharp.accel import wide as wide_mod
 
     rng = np.random.default_rng(9)
     lo = rng.uniform(-5, 5, (3000, 3)).astype(np.float32)
@@ -273,11 +273,12 @@ def test_wide_collapse_wellformed():
 
 
 def test_wide_traversal_matches_brute():
-    """traverse_wide over a scene build must agree with brute force for
-    every K (and with the binary packed walk)."""
-    from ptsharp_tpu.accel.traverse import traverse_wide_chunked
-    from ptsharp_tpu.materials import diffuse_material
-    from ptsharp_tpu.scene import SceneBuilder
+    """traverse_wide over a scene build, and the per-lane kernel over the
+    same tables, must agree with brute force for every K."""
+    from ptsharp.accel.traverse import traverse_wide
+    from ptsharp.materials import diffuse_material
+    from ptsharp.pallas import traverse_gpu
+    from ptsharp.scene import SceneBuilder
 
     mesh = sphere_mesh([0, 0.5, 0], 1.0, subdivisions=3)
     rng = np.random.default_rng(10)
@@ -291,23 +292,22 @@ def test_wide_traversal_matches_brute():
         b.add_mesh(mesh, diffuse_material([0.5, 0.5, 0.5]))
         scene = b.build(leaf_size=8, wide_k=k)
         wb, we = int(scene.w_inst_base[0]), int(scene.w_inst_end[0])
-        t, slot, u, v = jax.jit(
-            lambda o, dd, s=scene, wb=wb, we=we: traverse_wide_chunked(
-                s.w_rows, s.leaf_rows, o, dd, vec.INF, wb, we, 8, k,
-                chunk=128,
-            )
-        )(org, d)
-        np.testing.assert_allclose(np.asarray(t), np.asarray(t_ref),
-                                   rtol=1e-4, atol=1e-4)
+        for walk in (traverse_wide, traverse_gpu.closest_hit):
+            t, slot, u, v = jax.jit(
+                lambda o, dd, s=scene, wb=wb, we=we, walk=walk: walk(
+                    s.w_rows, s.leaf_rows, o, dd, vec.INF, wb, we, 8, k)
+            )(org, d)
+            np.testing.assert_allclose(np.asarray(t), np.asarray(t_ref),
+                                       rtol=1e-4, atol=1e-4)
 
 
 def test_cluster_intersector_small_scene():
     """Regression: a scene with fewer clusters than the candidate count
     (single small mesh -> 1 cluster < k_cand=12) must degrade gracefully,
     not crash lax.top_k."""
-    from ptsharp_tpu.intersect import closest_hit
-    from ptsharp_tpu.materials import diffuse_material
-    from ptsharp_tpu.scene import SceneBuilder
+    from ptsharp.intersect import closest_hit
+    from ptsharp.materials import diffuse_material
+    from ptsharp.scene import SceneBuilder
 
     b = SceneBuilder()
     b.add_mesh(cube_mesh([-1, -1, -1], [1, 1, 1]), diffuse_material([1, 0, 0]))
@@ -318,7 +318,7 @@ def test_cluster_intersector_small_scene():
 
 
 def _ray_t(scene, o, d):
-    from ptsharp_tpu.intersect import closest_hit
+    from ptsharp.intersect import closest_hit
 
     hit = closest_hit(scene, jnp.asarray([o], jnp.float32),
                       jnp.asarray([d], jnp.float32))
@@ -331,9 +331,9 @@ def test_packed_traversal_matches_brute():
     u_rows/leaf_rows packing)."""
     import jax
 
-    from ptsharp_tpu.accel.traverse import traverse_packed, traverse_packed_chunked
-    from ptsharp_tpu.materials import diffuse_material
-    from ptsharp_tpu.scene import SceneBuilder
+    from ptsharp.accel.traverse import traverse_packed, traverse_packed_chunked
+    from ptsharp.materials import diffuse_material
+    from ptsharp.scene import SceneBuilder
 
     mesh = sphere_mesh([0, 0.5, 0], 1.0, subdivisions=3)
     b = SceneBuilder()

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ptsharp_tpu.core import filters, poisson
-from ptsharp_tpu.examples import CATALOG, build
-from ptsharp_tpu.renderer import Renderer, RenderConfig
+from ptsharp.core import filters, poisson
+from ptsharp.examples import CATALOG, build
+from ptsharp.renderer import Renderer, RenderConfig
 
 # scenes cheap enough for per-commit CI on 2 CPUs; the full catalog smoke
 # runs in scripts/render_catalog.py
@@ -37,10 +37,10 @@ def test_dragon_scale_mesh():
     ray batch. (The true million-node scale renders via examples.dragon_hd,
     1.3M tris / ~439k nodes, exercised by scripts/render_catalog.py and the
     large-mesh bench config.)"""
-    from ptsharp_tpu.examples import _bunny_mesh
-    from ptsharp_tpu.intersect import closest_hit
-    from ptsharp_tpu.materials import diffuse_material
-    from ptsharp_tpu.scene import SceneBuilder
+    from ptsharp.examples import _bunny_mesh
+    from ptsharp.intersect import closest_hit
+    from ptsharp.materials import diffuse_material
+    from ptsharp.scene import SceneBuilder
 
     m = _bunny_mesh(6, seed=3)
     b = SceneBuilder()
@@ -76,9 +76,9 @@ def test_filters():
 def test_triangle_filter_render_unbiased():
     """Filtered render of a constant environment stays constant (weights
     normalize out in the Welford mean)."""
-    from ptsharp_tpu.integrator import IntegratorConfig
-    from ptsharp_tpu.scene import SceneBuilder
-    from ptsharp_tpu.camera import Camera
+    from ptsharp.integrator import IntegratorConfig
+    from ptsharp.scene import SceneBuilder
+    from ptsharp.camera import Camera
 
     b = SceneBuilder()
     b.set_environment(color=[0.3, 0.5, 0.7])
@@ -103,7 +103,7 @@ def test_poisson_disc_spacing():
 
 
 def test_molfile_roundtrip():
-    from ptsharp_tpu.io.mol import benzene, parse_molfile
+    from ptsharp.io.mol import benzene, parse_molfile
 
     mol = benzene()
     # write a V2000 molfile and parse it back
@@ -119,7 +119,7 @@ def test_molfile_roundtrip():
 
 
 def test_heightfield_intersect():
-    from ptsharp_tpu.geometry.function import Heightfield, intersect, normal_at
+    from ptsharp.geometry.function import Heightfield, intersect, normal_at
 
     hf = Heightfield(
         f=lambda x, y: jnp.zeros_like(x),  # flat plane z = 0
@@ -135,7 +135,7 @@ def test_heightfield_intersect():
 
 
 def test_viewer_serves_frames():
-    from ptsharp_tpu.viewer import ViewerServer
+    from ptsharp.viewer import ViewerServer
 
     v = ViewerServer(port=18765).start()
     try:

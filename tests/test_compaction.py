@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptsharp_tpu import examples
-from ptsharp_tpu.integrator import (
+from ptsharp import examples
+from ptsharp.integrator import (
     IntegratorConfig,
     RayState,
     _compact_state,
@@ -65,7 +65,7 @@ def test_trace_compacted_matches_trace():
     np.testing.assert_allclose(rb.mean(), ra.mean(), rtol=0.03)
     # lanes that died before the compaction point never re-enter the tail:
     # trace() shares the prefix key chain, so those lanes are bit-identical
-    from ptsharp_tpu.integrator import _trace_prefix
+    from ptsharp.integrator import _trace_prefix
 
     state, _rr, _a, _n, _k = _trace_prefix(scene, icfg, org, dirn, key,
                                            None, 1, 3)
@@ -86,7 +86,7 @@ def test_reservoir_compact_unbiased_weights():
     """_reservoir_compact: when survivors exceed the cap, exactly cap lanes
     survive, each reweighted by S/cap, so total expected throughput is
     preserved; when S <= cap, all survive unweighted."""
-    from ptsharp_tpu.integrator import _reservoir_compact
+    from ptsharp.integrator import _reservoir_compact
 
     r = 256
     rng = np.random.default_rng(1)
@@ -116,7 +116,7 @@ def test_reservoir_compact_unbiased_weights():
 def test_trace_compacted_static_matches_trace():
     """The sync-free static-schedule estimator converges to the same
     integral as plain trace on the RR cornell config."""
-    from ptsharp_tpu.integrator import trace_compacted_static
+    from ptsharp.integrator import trace_compacted_static
 
     scene, icfg, org, dirn, key = _cornell_rays(8192)
     icfg = IntegratorConfig(max_bounces=8, russian_roulette=True,
@@ -151,8 +151,8 @@ def test_no_rr_compaction_engages_and_matches():
     import jax
     import jax.numpy as jnp
 
-    from ptsharp_tpu import examples
-    from ptsharp_tpu.integrator import (
+    from ptsharp import examples
+    from ptsharp.integrator import (
         IntegratorConfig, compaction_schedule, trace, trace_compacted_static,
     )
 

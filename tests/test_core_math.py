@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ptsharp_tpu.core import color, sampling, transform, vec
+from ptsharp.core import color, sampling, transform, vec
 
 
 def test_vec_basics():

@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptsharp_tpu.camera import Camera
-from ptsharp_tpu.diff import render_image
-from ptsharp_tpu.integrator import IntegratorConfig
-from ptsharp_tpu.materials import diffuse_material, light_material
-from ptsharp_tpu.scene import SceneBuilder
+from ptsharp.camera import Camera
+from ptsharp.diff import render_image
+from ptsharp.integrator import IntegratorConfig
+from ptsharp.materials import diffuse_material, light_material
+from ptsharp.scene import SceneBuilder
 
 
 def _scene():
@@ -84,7 +84,7 @@ def test_grad_env_color():
 def test_grad_through_mesh_scene_is_finite():
     """BVH traversal is stop-gradiented; grads w.r.t. materials must still
     be finite and nonzero in a mesh scene."""
-    from ptsharp_tpu.geometry.mesh import cube_mesh
+    from ptsharp.geometry.mesh import cube_mesh
 
     b = SceneBuilder()
     b.add_mesh(cube_mesh([-1, 0, -1], [1, 2, 1]), diffuse_material([0.5, 0.5, 0.5]))
@@ -110,7 +110,7 @@ def test_grad_compacted_matches_plain():
     bench runs the compacted path: dead lanes cost double in fwd+bwd,
     scripts/exp_grad4.py). Same key chain -> near-identical gradients up
     to the ~1% lane divergence of fusion-dependent RR coin rounding."""
-    from ptsharp_tpu.integrator import trace, trace_compacted_static
+    from ptsharp.integrator import trace, trace_compacted_static
 
     cfg = IntegratorConfig(max_bounces=6, russian_roulette=True,
                            rr_start_depth=2)

@@ -1,6 +1,6 @@
 """Real multi-process jax.distributed exercise (SURVEY.md §5 distributed
 backend row): two CPU subprocesses join a localhost coordinator via
-ptsharp_tpu.parallel.distributed.initialize, build the global (dp, sp)
+ptsharp.parallel.distributed.initialize, build the global (dp, sp)
 mesh, run one sharded render + train step, and must agree on the loss.
 
 This is the cross-host path the single-process shard_map tests cannot
@@ -23,19 +23,19 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 port, pid = sys.argv[1], int(sys.argv[2])
 
-from ptsharp_tpu.parallel import distributed as dist
+from ptsharp.parallel import distributed as dist
 dist.initialize(coordinator_address=f"localhost:{port}",
                 num_processes=2, process_id=pid)
 assert jax.process_count() == 2, jax.process_count()
 assert len(jax.devices()) == 4, len(jax.devices())
 
 import jax.numpy as jnp
-from ptsharp_tpu.camera import Camera
-from ptsharp_tpu.geometry.mesh import cube_mesh
-from ptsharp_tpu.integrator import IntegratorConfig
-from ptsharp_tpu.materials import diffuse_material, light_material
-from ptsharp_tpu.parallel.shard import make_train_step, render_image_sharded
-from ptsharp_tpu.scene import SceneBuilder
+from ptsharp.camera import Camera
+from ptsharp.geometry.mesh import cube_mesh
+from ptsharp.integrator import IntegratorConfig
+from ptsharp.materials import diffuse_material, light_material
+from ptsharp.parallel.shard import make_train_step, render_image_sharded
+from ptsharp.scene import SceneBuilder
 
 mesh = dist.global_mesh(dp=2, sp=2)
 b = SceneBuilder()

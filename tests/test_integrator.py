@@ -7,16 +7,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ptsharp_tpu.camera import Camera
-from ptsharp_tpu.integrator import IntegratorConfig, trace
-from ptsharp_tpu.materials import (
+from ptsharp.camera import Camera
+from ptsharp.integrator import IntegratorConfig, trace
+from ptsharp.materials import (
     diffuse_material,
     light_material,
     metallic_material,
     specular_material,
 )
-from ptsharp_tpu.renderer import Renderer, RenderConfig
-from ptsharp_tpu.scene import SceneBuilder
+from ptsharp.renderer import Renderer, RenderConfig
+from ptsharp.scene import SceneBuilder
 
 from tests import reference_tracer as ref
 

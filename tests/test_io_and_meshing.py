@@ -5,13 +5,13 @@ import os
 import numpy as np
 import pytest
 
-from ptsharp_tpu.geometry.mc import sdf_mesh
-from ptsharp_tpu.geometry.mesh import TriMesh, cube_mesh, sphere_mesh
-from ptsharp_tpu.geometry import sh_shape
-from ptsharp_tpu.io.obj import load_mtl, load_obj, save_obj
-from ptsharp_tpu.io.stl import load_stl, save_stl
-from ptsharp_tpu.materials import diffuse_material
-from ptsharp_tpu.scene import SceneBuilder
+from ptsharp.geometry.mc import sdf_mesh
+from ptsharp.geometry.mesh import TriMesh, cube_mesh, sphere_mesh
+from ptsharp.geometry import sh_shape
+from ptsharp.io.obj import load_mtl, load_obj, save_obj
+from ptsharp.io.stl import load_stl, save_stl
+from ptsharp.materials import diffuse_material
+from ptsharp.scene import SceneBuilder
 
 
 def test_obj_roundtrip(tmp_path):

@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptsharp_tpu.integrator import IntegratorConfig, trace
-from ptsharp_tpu.materials import diffuse_material, light_material
-from ptsharp_tpu.scene import SceneBuilder
+from ptsharp.integrator import IntegratorConfig, trace
+from ptsharp.materials import diffuse_material, light_material
+from ptsharp.scene import SceneBuilder
 
 
 def _lights_scene(n_lights):
@@ -78,7 +78,7 @@ def test_power_mode_flat_in_light_count():
 
 
 def test_runway_example_smokes():
-    from ptsharp_tpu import examples
+    from ptsharp import examples
 
     scene, cam, _rcfg, icfg = examples.build("runway")
     assert scene.num_lights > 100

@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptsharp_tpu.camera import Camera
-from ptsharp_tpu.geometry.mesh import TriMesh, quad_mesh
-from ptsharp_tpu.integrator import IntegratorConfig, trace
-from ptsharp_tpu.materials import diffuse_material, light_material
-from ptsharp_tpu.scene import SceneBuilder
+from ptsharp.camera import Camera
+from ptsharp.geometry.mesh import TriMesh, quad_mesh
+from ptsharp.integrator import IntegratorConfig, trace
+from ptsharp.materials import diffuse_material, light_material
+from ptsharp.scene import SceneBuilder
 
 
 def _trace_grid(scene, icfg, spp, seed=0, n=8):
@@ -87,7 +87,7 @@ def test_partially_emissive_mesh_ke_path():
 @pytest.mark.slow
 def test_transformed_emissive_instance():
     """Mesh-light geometry follows the instance transform."""
-    from ptsharp_tpu.core.transform import translate
+    from ptsharp.core.transform import translate
 
     b = SceneBuilder()
     b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.7, 0.7, 0.7]))

@@ -6,20 +6,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptsharp_tpu.camera import Camera
-from ptsharp_tpu.integrator import (
+from ptsharp.camera import Camera
+from ptsharp.integrator import (
     SPECULAR_MODE_ALL,
     SPECULAR_MODE_FIRST,
     IntegratorConfig,
     trace,
 )
-from ptsharp_tpu.materials import (
+from ptsharp.materials import (
     diffuse_material,
     glossy_material,
     light_material,
 )
-from ptsharp_tpu.renderer import RenderConfig, Renderer
-from ptsharp_tpu.scene import SceneBuilder
+from ptsharp.renderer import RenderConfig, Renderer
+from ptsharp.scene import SceneBuilder
 
 
 def _gloss_scene():
@@ -151,7 +151,7 @@ def test_texture_parameter_gradient():
     b = SceneBuilder()
     tex = np.full((4, 4, 3), 0.5, np.float32)
     tid = b.add_texture(tex)
-    from ptsharp_tpu.materials import Material
+    from ptsharp.materials import Material
 
     b.add_plane([0, 0, 0], [0, 1, 0], Material(color=(1, 1, 1), texture=tid))
     b.add_sphere([0, 4, 0], 1.0, light_material([1, 1, 1], 8.0))

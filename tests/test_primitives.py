@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ptsharp_tpu.core import vec
-from ptsharp_tpu.geometry import primitives as prim
+from ptsharp.core import vec
+from ptsharp.geometry import primitives as prim
 
 
 def rays(org, dirn):

@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 from dataclasses import replace
 
-from ptsharp_tpu import examples
-from ptsharp_tpu.integrator import IntegratorConfig, trace
-from ptsharp_tpu.tape import tape_supported, trace_tape_radiance
+from ptsharp import examples
+from ptsharp.integrator import IntegratorConfig, trace
+from ptsharp.tape import tape_supported, trace_tape_radiance
 
 
 def _rays(cam, r, w, h, key):

@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptsharp_tpu.core.transform import rotate, translate, scale
-from ptsharp_tpu.geometry.mesh import cube_mesh, sphere_mesh
-from ptsharp_tpu.intersect import closest_hit, hit_info
-from ptsharp_tpu.materials import diffuse_material, light_material
-from ptsharp_tpu.scene import SceneBuilder
+from ptsharp.core.transform import rotate, translate, scale
+from ptsharp.geometry.mesh import cube_mesh, sphere_mesh
+from ptsharp.intersect import closest_hit, hit_info
+from ptsharp.materials import diffuse_material, light_material
+from ptsharp.scene import SceneBuilder
 
 
 def _hetero_builder():
@@ -101,8 +101,8 @@ def test_tlas_auto_heuristic():
 def test_tlas_render_smoke():
     """A full render through the TLAS path stays finite and matches the
     brute-force image."""
-    from ptsharp_tpu.camera import Camera
-    from ptsharp_tpu.integrator import IntegratorConfig, trace
+    from ptsharp.camera import Camera
+    from ptsharp.integrator import IntegratorConfig, trace
 
     b = _hetero_builder()
     s_tlas = b.build(leaf_size=4, use_tlas=True)
